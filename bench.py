@@ -1,27 +1,23 @@
-"""Throughput benchmark: batched env+planner steps/sec on one chip.
+"""Throughput benchmark: batched env+planner steps/sec on one device.
 
 The north-star metric from BASELINE.json: closed-loop MPC control — every
 env step runs a full iLQR plan (expert goal generation, dynamics-carry
 warmup, solver iterations over the horizon) followed by a physics step —
 batched over many parallel environments, entirely on device.
 
-Prints one JSON line per row: {"metric", "value", "unit", "vs_baseline"}.
-``vs_baseline`` is value / 10_000 (the BASELINE.json target steps/sec).
-The FIRST line is always the flagship random-weights row (the pessimistic
-bound: random cost/dynamics barely converge, so the convergence gate
-never exits early). When the committed cheetah gan/4 run dir exists, a
-SECOND line reports the TRAINED production checkpoint at its own solver
-budget — the number a deployed policy actually runs at (VERDICT r4
-item 8 asked for this row in the driver artifact, not just behind an
-env var).
+Prints one JSON line per row: {"metric", "value", "unit", "vs_baseline",
+"device", "compile_seconds", "mean_reward"}. ``vs_baseline`` is value /
+10_000 (the BASELINE.json target steps/sec). The FIRST line is always
+the flagship random-weights row (the pessimistic bound: random
+cost/dynamics barely converge, so the convergence gate never exits
+early). When the committed cheetah gan/4 run dir exists, a SECOND line
+reports the TRAINED production checkpoint at its own solver budget — the
+number a deployed policy actually runs at.
 
 Defaults: cheetah_run (the BASELINE target's "cheetah-class" task), 512
 parallel envs, iLQR capped at 5 warm-started iterations per control step
 (standard real-time-iteration MPC practice; the solver is
-convergence-gated at tol 1e-4 so most steps use fewer). Measured on one
-v5e chip with the round-2 batch-native time-major solver: ~55.1k steps/s
-at <=5 iters (40.8k at <=10, 63.8k at <=3); pendulum-class ~175k
-steps/s (see BENCHMARKS.md).
+convergence-gated at tol 1e-4 so most steps use fewer).
 Override via BENCH_ENV / BENCH_NUM_ENVS / BENCH_ILQR_ITERS / BENCH_HORIZON.
 
 BENCH_CHECKPOINT=<run_dir> benches ONLY that trained imitator: policy,
@@ -42,10 +38,8 @@ DEFAULT_CHECKPOINT = "runs/trained_models/imitator/cheetah_run/gan/4"
 
 
 def _load_checkpoint(checkpoint):
-    from flax import serialization
-
     from gan_mpc_tpu.runners import common
-    from gan_mpc_tpu.utils import io
+    from gan_mpc_tpu.utils import io, serialization
 
     config = common.load_run_config(checkpoint)
     env, env_params = common.imitator_env(config)
@@ -81,7 +75,6 @@ def _flagship_setup(env_name, horizon, max_iters):
         inner_unroll=int(os.environ.get("BENCH_UNROLL", "1")),
         ls_materialize=os.environ.get("BENCH_LS", "auto"),
         compute_dtype=os.environ.get("BENCH_DTYPE", "float32"),
-        fused_ls=os.environ.get("BENCH_FUSED", "off"),
         num_alphas=int(os.environ.get("BENCH_ALPHAS", "16")),
     )
     norm = Normalizer.identity(x_size, u_size)
@@ -114,9 +107,13 @@ def bench_row(setup, num_envs, num_steps):
     )
 
     key = jax.random.PRNGKey(0)
-    # compile + warmup
-    ep = run(params, key)
-    jax.block_until_ready(ep.rewards)
+    t0 = time.perf_counter()
+    run = run.lower(params, key).compile()
+    compile_seconds = time.perf_counter() - t0
+    ep = run(params, key)  # warmup
+    mean_reward = float(jnp.mean(ep.rewards))
+    if not jnp.all(jnp.isfinite(ep.rewards)):
+        raise FloatingPointError(f"non-finite rewards in the {env_name} row")
 
     t0 = time.perf_counter()
     reps = 3
@@ -127,12 +124,15 @@ def bench_row(setup, num_envs, num_steps):
 
     steps_per_sec = num_envs * num_steps / dt
     return {
-        "metric": "batched env+planner steps/sec (one chip, "
+        "metric": "batched env+planner steps/sec (one device, "
         f"{env_name}, {num_envs} envs, iLQR<= {max_iters} iters, "
         f"H={horizon})",
         "value": round(steps_per_sec, 1),
         "unit": "steps/sec",
         "vs_baseline": round(steps_per_sec / 10_000.0, 4),
+        "device": jax.devices()[0].device_kind,
+        "compile_seconds": round(compile_seconds, 2),
+        "mean_reward": mean_reward,
     }
 
 
@@ -158,12 +158,8 @@ def main():
     ckpt = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         DEFAULT_CHECKPOINT)
     if os.path.exists(os.path.join(ckpt, "params.msgpack")):
-        try:
-            row2 = bench_row(_load_checkpoint(ckpt), num_envs, num_steps)
-            print(json.dumps(row2))
-        except Exception as exc:  # a broken artifact must not kill line 1
-            print(json.dumps({"metric": "trained-checkpoint row failed",
-                              "error": str(exc)[:200]}), file=sys.stderr)
+        row2 = bench_row(_load_checkpoint(ckpt), num_envs, num_steps)
+        print(json.dumps(row2))
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
-"""gan_mpc_tpu — a TPU-native GAN-MPC imitation-learning framework.
+"""gan_mpc_tpu — a JAX GAN-MPC imitation-learning framework.
 
-A ground-up JAX/XLA/Pallas re-design of the capabilities of the reference
+A ground-up JAX/XLA re-design of the capabilities of the reference
 ``gan_mpc`` package (model-based imitation learning via learned-cost /
 learned-dynamics MPC, trained either with an L2 outer loss or adversarially
 against a sequence critic).

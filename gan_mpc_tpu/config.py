@@ -14,7 +14,7 @@ from __future__ import annotations
 import copy
 from typing import Any, Iterator, Mapping
 
-import yaml
+from gan_mpc_tpu.utils import yaml_lite
 
 
 class Config(Mapping[str, Any]):
@@ -38,11 +38,11 @@ class Config(Mapping[str, Any]):
     @classmethod
     def from_yaml(cls, path: str) -> "Config":
         with open(path, "r") as fp:
-            return cls.from_dict(yaml.safe_load(fp))
+            return cls.from_dict(yaml_lite.load(fp.read()))
 
     @classmethod
     def from_yaml_str(cls, text: str) -> "Config":
-        return cls.from_dict(yaml.safe_load(text))
+        return cls.from_dict(yaml_lite.load(text))
 
     # -- mapping protocol ----------------------------------------------
 
@@ -80,7 +80,7 @@ class Config(Mapping[str, Any]):
         return out
 
     def to_yaml(self) -> str:
-        return yaml.safe_dump(self.to_dict(), sort_keys=False)
+        return yaml_lite.dump(self.to_dict())
 
     def get_path(self, dotted: str, default: Any = None) -> Any:
         node: Any = self

@@ -11,9 +11,9 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from gan_mpc_tpu.data.windows import sequence_windows
+from gan_mpc_tpu.utils import struct
 
 
 class ReplayBuffer(struct.PyTreeNode):

@@ -10,7 +10,8 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+
+from gan_mpc_tpu.utils import struct
 
 
 class Normalizer(struct.PyTreeNode):

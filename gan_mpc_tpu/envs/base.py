@@ -10,7 +10,7 @@ sharded with ``shard_map``.
 
 Env API:
     env.obs_size / env.act_size / env.dt / env.episode_steps
-    env.default_params() -> params pytree (flax.struct dataclass)
+    env.default_params() -> params pytree (utils.struct dataclass)
     env.reset(params, key) -> EnvState
     env.step(params, state, action) -> (EnvState, reward)
     env.observe(params, state) -> (obs_size,) observation
@@ -23,7 +23,8 @@ import re
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+
+from gan_mpc_tpu.utils import struct
 
 
 class EnvState(struct.PyTreeNode):

@@ -26,9 +26,9 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from gan_mpc_tpu.envs import base
+from gan_mpc_tpu.utils import struct
 
 
 class CartpoleParams(struct.PyTreeNode):

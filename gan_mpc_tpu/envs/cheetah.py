@@ -16,10 +16,10 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
 from gan_mpc_tpu.envs import base
 from gan_mpc_tpu.envs.planar import PlanarModel, step as planar_step
+from gan_mpc_tpu.utils import struct
 
 # Link order: torso(root), bthigh, bshin, bfoot, fthigh, fshin, ffoot.
 _PARENT = (-1, 0, 1, 2, 0, 4, 5)

@@ -1,7 +1,7 @@
 """Evaluate policies in the REAL dm_control environments (oracle path).
 
 The reference measures rewards by rolling its policy in dm_control
-(``/root/reference/utils.py:254-306``). The TPU framework trains and
+(``/root/reference/utils.py:254-306``). This framework trains and
 evaluates entirely in its pure-JAX envs; this module closes the parity
 loop by re-evaluating any trained policy inside the actual MuJoCo suite
 task — same observation flattening (``/root/reference/utils.py:103-108``)

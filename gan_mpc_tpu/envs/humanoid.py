@@ -23,10 +23,10 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
 from gan_mpc_tpu.envs import base
 from gan_mpc_tpu.envs.planar import PlanarModel, step as planar_step
+from gan_mpc_tpu.utils import struct
 
 _PARENT = (-1, 0, 1, 0, 3, 4, 0, 6, 7, 1, 9, 1, 11)
 _MASSES = np.array(

@@ -21,9 +21,9 @@ import math
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from gan_mpc_tpu.envs import base
+from gan_mpc_tpu.utils import struct
 
 # Pure-Python so importing this module never initializes a JAX backend
 # (the driver's dryrun must be able to force a CPU backend first).

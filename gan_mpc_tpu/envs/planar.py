@@ -5,7 +5,7 @@ a kinematic tree of rigid links in the x-z plane with a 3-DoF floating
 root (x, z, pitch) and hinge joints, Lagrangian dynamics assembled with
 autodiff, and penalty-based ground contacts. Everything is a pure
 function of (model, q, qd, tau) — jit/vmap/shard_map-friendly, static
-shapes, no data-dependent control flow — so whole episodes batch on TPU.
+shapes, no data-dependent control flow — so whole episodes batch on the device.
 
 Dynamics assembly (textbook Lagrangian mechanics, autodiff-powered):
   * forward kinematics gives per-body COM positions c_i(q) and world
@@ -21,7 +21,7 @@ Dynamics assembly (textbook Lagrangian mechanics, autodiff-powered):
 
 The engine replaces the reference's dependence on the MuJoCo C library
 (``/root/reference/utils.py:38-62``) for cheetah-class tasks with a
-TPU-resident step; SURVEY.md §2.9-bis row 1.
+device-resident step; SURVEY.md §2.9-bis row 1.
 """
 
 from __future__ import annotations

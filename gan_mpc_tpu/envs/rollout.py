@@ -238,13 +238,12 @@ def chunked_batched_rollout(
     chunk_steps: int,
     action_noise: float = 0.0,
 ) -> EpisodeData:
-    """Watchdog-safe long rollouts: ONE jitted program per
+    """Chunked long rollouts: ONE jitted program per
     ``chunk_steps``-step chunk, host-stepped between chunks.
 
-    The TPU runtime kills workers on single programs that execute too
-    long (observed on humanoid-scale fan-outs and on 1000-step
-    plan-through-true-physics evals — BENCHMARKS.md); this bounds each
-    device program while keeping per-step dispatch amortized. Per-env
+    Bounds how long each device program runs (a runtime that kills
+    long-running programs was the reason; none is known on the GPU)
+    while keeping per-step dispatch amortized. Per-env
     ``policy_fn(params, hist_x (h+1,x), hist_u (h,u)) -> act`` like
     ``batched_rollout`` (vmapped over the env batch); bit-identical to
     ``batch_policy_rollout`` with the vmapped policy (same reset/noise

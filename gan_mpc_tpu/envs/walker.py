@@ -12,10 +12,10 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
 from gan_mpc_tpu.envs import base
 from gan_mpc_tpu.envs.planar import PlanarModel, step as planar_step
+from gan_mpc_tpu.utils import struct
 
 # Bodies: torso(root, extends UP from hip), lthigh, lshin, lfoot,
 #         rthigh, rshin, rfoot.

@@ -4,7 +4,7 @@ Capability parity with the reference's abstract bases
 (``/root/reference/base.py:4-49``), expressed the idiomatic-Python way as
 ``typing.Protocol`` (structural duck typing — any object with the right
 methods conforms; no inheritance required, which keeps models as plain
-flax modules / pytree wrappers). ``runtime_checkable`` lets factories
+dataclass modules / pytree wrappers). ``runtime_checkable`` lets factories
 validate components at wiring time.
 """
 

@@ -18,11 +18,13 @@ implicit bilevel VJP.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Sequence
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
+
+from gan_mpc_tpu.models.layers import mlp, mlp_init
 
 _HUBER_ALPHA = 1e-2
 
@@ -32,25 +34,27 @@ def smoothed_norm(v: jax.Array, alpha: float = _HUBER_ALPHA) -> jax.Array:
     return jnp.sqrt(jnp.vdot(v, v) + alpha * alpha) - alpha
 
 
-class CostFeatureNet(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class CostFeatureNet:
     """MLP mapping the planner state to a feature vector f; cost = <f, f>."""
 
     hidden: Sequence[int] = (128, 128)
     features_out: int = 10
 
-    @nn.compact
-    def __call__(self, xc: jax.Array) -> jax.Array:
-        h = xc
-        for width in self.hidden:
-            h = nn.relu(nn.Dense(width)(h))
-        f = nn.Dense(self.features_out)(h)
+    def init(self, key: jax.Array, xc: jax.Array) -> dict:
+        widths = (*self.hidden, self.features_out)
+        return {"params": mlp_init(key, xc.shape[-1], widths)}
+
+    def apply(self, params, xc: jax.Array) -> jax.Array:
+        f = mlp(params["params"], xc, len(self.hidden) + 1)
         return jnp.vdot(f, f)
 
 
 class MPCCost:
     """Stateless planner-cost assembler around a CostFeatureNet.
 
-    ``params`` convention: ``{"net": <flax params>, "weights": (3,) raw}``
+    ``params`` convention: ``{"net": <CostFeatureNet params>, "weights":
+    (3,) raw}``
     where ``weights`` are pre-sigmoid (action, state, terminal) — or
     (4,) with a trailing action-GOAL weight, see ``stage``.
     """

@@ -16,14 +16,17 @@ Capability parity with ``/root/reference/dynamics/nn.py`` +
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Sequence
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
+from gan_mpc_tpu.models.layers import lstm, lstm_init, mlp, mlp_init
 
-class ResidualMLPDynamicsNet(nn.Module):
+
+@dataclasses.dataclass(frozen=True)
+class ResidualMLPDynamicsNet:
     """next_x = x + MLP([x, u]); carry-free (carry width 0)."""
 
     x_size: int
@@ -33,17 +36,19 @@ class ResidualMLPDynamicsNet(nn.Module):
     def carry_size(self) -> int:
         return 0
 
-    @nn.compact
-    def __call__(self, xc: jax.Array, u: jax.Array) -> jax.Array:
+    def init(self, key: jax.Array, xc: jax.Array, u: jax.Array) -> dict:
+        fin = self.x_size + u.shape[-1]
+        return {"params": mlp_init(key, fin, (*self.hidden, self.x_size))}
+
+    def apply(self, params, xc: jax.Array, u: jax.Array) -> jax.Array:
         x = xc[: self.x_size]
         h = jnp.concatenate([x, u], axis=-1)
-        for width in self.hidden:
-            h = nn.relu(nn.Dense(width)(h))
-        dx = nn.Dense(self.x_size)(h)
+        dx = mlp(params["params"], h, len(self.hidden) + 1)
         return jnp.concatenate([x + dx, xc[self.x_size :]], axis=-1)
 
 
-class LSTMDynamicsNet(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class LSTMDynamicsNet:
     """LSTM-backed residual dynamics with the carry packed into xc.
 
     xc layout: ``[x (x_size), h (features), c (features)]``.
@@ -57,18 +62,28 @@ class LSTMDynamicsNet(nn.Module):
     def carry_size(self) -> int:
         return 2 * self.features
 
-    @nn.compact
-    def __call__(self, xc: jax.Array, u: jax.Array) -> jax.Array:
+    def init(self, key: jax.Array, xc: jax.Array, u: jax.Array) -> dict:
+        k_cell, k_mlp = jax.random.split(key)
+        p = {
+            "OptimizedLSTMCell_0": lstm_init(
+                k_cell, self.x_size + u.shape[-1], self.features
+            )
+        }
+        p.update(
+            mlp_init(k_mlp, self.features, (*self.hidden, self.x_size))
+        )
+        return {"params": p}
+
+    def apply(self, params, xc: jax.Array, u: jax.Array) -> jax.Array:
+        p = params["params"]
         x = xc[: self.x_size]
         h_state = xc[self.x_size : self.x_size + self.features]
         c_state = xc[self.x_size + self.features :]
         q = jnp.concatenate([x, u], axis=-1)
-        (c_new, h_new), q = nn.OptimizedLSTMCell(self.features)(
-            (c_state, h_state), q
+        (c_new, h_new), q = lstm(
+            p["OptimizedLSTMCell_0"], (c_state, h_state), q
         )
-        for width in self.hidden:
-            q = nn.relu(nn.Dense(width)(q))
-        dx = nn.Dense(self.x_size)(q)
+        dx = mlp(p, q, len(self.hidden) + 1)
         return jnp.concatenate([x + dx, h_new, c_new], axis=-1)
 
 
@@ -108,7 +123,7 @@ class LearnedDynamics:
         self, params, X: jax.Array, U: jax.Array, compute_dtype=None
     ) -> jax.Array:
         """next_x for (N, n) states / (N, m) actions in one fused call.
-        ``compute_dtype`` selects the GEMM dtype (bf16 MXU path)."""
+        ``compute_dtype`` selects the GEMM dtype (bf16 path)."""
         from gan_mpc_tpu.ops.fused_mlp import dense_stack, mlp_apply
 
         z = jnp.concatenate([X, U], axis=-1)

@@ -1,7 +1,7 @@
 """Ensemble dynamics models (the EP axis of the humanoid-scale config).
 
 BASELINE.json configs[4]: "long-horizon (H>=50) MPC with ensemble dynamics
-models sharded across a full TPU mesh". An ensemble of E independent
+models sharded across a full device mesh". An ensemble of E independent
 dynamics nets is held as stacked parameters (leading axis E); the planner
 consumes the ensemble MEAN prediction (smooth, differentiable), while
 training updates every member on bootstrapped minibatches. The ensemble

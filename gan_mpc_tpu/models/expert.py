@@ -7,7 +7,8 @@ Capability parity with ``/root/reference/expert/nn.py`` +
     state, ``u`` is tanh-squashed;
   * the teacher-forcing switch lives INSIDE the cell (``jnp.where(tf, x,
     x_prev)``) so open/closed-loop unrolls are the same compiled program;
-  * MLP and LSTM cell variants. Cell-inventory mapping to the reference:
+  * MLP and LSTM cell variants, named in the param tree as the flax
+    submodules they were. Cell-inventory mapping to the reference:
     ``_MLPCell`` = ``StackedMLPCell`` (``expert/nn.py:22-40`` — shared
     relu trunk + two deep heads; that IS the reference's "mlp" arch,
     scanned by ``ScanMLP``), ``_PredictionHeads`` = its plain ``MLPCell``
@@ -24,72 +25,41 @@ cleanly under ``shard_map``.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Sequence
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
+from gan_mpc_tpu.models.layers import lstm, lstm_init, mlp, mlp_init
 
-class _PredictionHeads(nn.Module):
+
+def _heads_init(key, fin, x_size, u_size, hidden) -> dict:
+    """Two relu heads on the trunk feature: ``Dense_0..L`` for next_x,
+    ``Dense_{L+1}..2L+1`` for u (flax's creation order)."""
+    kx, ku = jax.random.split(key)
+    p = mlp_init(kx, fin, (*hidden, x_size))
+    p.update(mlp_init(ku, fin, (*hidden, u_size), first=len(hidden) + 1))
+    return p
+
+
+def _heads(p, y, x, n_hidden):
     """Maps a trunk feature y (and input state x) to (next_x, u)."""
-
-    x_size: int
-    u_size: int
-    hidden: Sequence[int]
-
-    @nn.compact
-    def __call__(self, y: jax.Array, x: jax.Array):
-        hx = y
-        for width in self.hidden:
-            hx = nn.relu(nn.Dense(width)(hx))
-        next_x = nn.Dense(self.x_size)(hx) + x
-        hu = y
-        for width in self.hidden:
-            hu = nn.relu(nn.Dense(width)(hu))
-        u = nn.tanh(nn.Dense(self.u_size)(hu))
-        return next_x, u
+    next_x = mlp(p, y, n_hidden + 1) + x
+    u = jnp.tanh(mlp(p, y, n_hidden + 1, first=n_hidden + 1))
+    return next_x, u
 
 
-class _MLPCell(nn.Module):
-    x_size: int
-    u_size: int
-    hidden: Sequence[int]
-
-    @nn.compact
-    def __call__(self, carry, x_t, teacher_forcing):
-        (x_prev,) = carry
-        x = jnp.where(teacher_forcing, x_t, x_prev)
-        y = nn.relu(nn.Dense(self.hidden[0])(x))
-        next_x, u = _PredictionHeads(self.x_size, self.u_size, self.hidden)(
-            y, x
-        )
-        return (next_x,), (next_x, u)
-
-
-class _LSTMCell(nn.Module):
-    x_size: int
-    u_size: int
-    features: int
-    hidden: Sequence[int]
-
-    @nn.compact
-    def __call__(self, carry, x_t, teacher_forcing):
-        lstm_state, x_prev = carry
-        x = jnp.where(teacher_forcing, x_t, x_prev)
-        lstm_state, y = nn.OptimizedLSTMCell(self.features)(lstm_state, x)
-        next_x, u = _PredictionHeads(self.x_size, self.u_size, self.hidden)(
-            y, x
-        )
-        return (lstm_state, next_x), (next_x, u)
-
-
-class ExpertPredictor(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class ExpertPredictor:
     """Scans the prediction cell over a state sequence.
 
-    ``__call__(carry, xseq, teacher_forcing)`` with xseq (seq_len, x_size)
-    returns ``(carry, (next_xseq, useq))``. ``teacher_forcing`` may be a
-    traced boolean — open vs. closed loop does not recompile.
+    ``apply(params, carry, xseq, teacher_forcing)`` with xseq
+    (seq_len, x_size) returns ``(carry, (next_xseq, useq))``.
+    ``teacher_forcing`` may be a traced boolean — open vs. closed loop
+    does not recompile. The cell is the reference's ``LSTMCell`` (arch
+    "lstm") or ``StackedMLPCell`` (arch "mlp": a relu trunk layer, then
+    the two heads).
     """
 
     x_size: int
@@ -105,23 +75,54 @@ class ExpertPredictor(nn.Module):
             return ((zeros, zeros), x0)
         return (x0,)
 
-    def _cell(self):
-        if self.arch == "lstm":
-            return _LSTMCell(self.x_size, self.u_size, self.features, self.hidden)
-        if self.arch == "mlp":
-            return _MLPCell(self.x_size, self.u_size, self.hidden)
-        raise ValueError(f"unknown expert arch {self.arch!r}")
+    def _check_arch(self):
+        if self.arch not in ("lstm", "mlp"):
+            raise ValueError(f"unknown expert arch {self.arch!r}")
 
-    @nn.compact
-    def __call__(self, carry, xseq: jax.Array, teacher_forcing):
-        scan = nn.scan(
-            lambda cell, c, x: cell(c, x, teacher_forcing),
-            variable_broadcast="params",
-            split_rngs={"params": False},
-            in_axes=0,
-            out_axes=0,
+    def init(self, key: jax.Array, carry, xseq: jax.Array, teacher_forcing):
+        self._check_arch()
+        k_trunk, k_heads = jax.random.split(key)
+        if self.arch == "lstm":
+            cell = {
+                "OptimizedLSTMCell_0": lstm_init(
+                    k_trunk, self.x_size, self.features
+                ),
+                "_PredictionHeads_0": _heads_init(
+                    k_heads, self.features, self.x_size, self.u_size,
+                    self.hidden,
+                ),
+            }
+            return {"params": {"_LSTMCell_0": cell}}
+        cell = mlp_init(k_trunk, self.x_size, (self.hidden[0],))
+        cell["_PredictionHeads_0"] = _heads_init(
+            k_heads, self.hidden[0], self.x_size, self.u_size, self.hidden
         )
-        return scan(self._cell(), carry, xseq)
+        return {"params": {"_MLPCell_0": cell}}
+
+    def apply(self, params, carry, xseq: jax.Array, teacher_forcing):
+        self._check_arch()
+        n_hidden = len(self.hidden)
+        if self.arch == "lstm":
+            p = params["params"]["_LSTMCell_0"]
+
+            def cell(carry, x_t):
+                lstm_state, x_prev = carry
+                x = jnp.where(teacher_forcing, x_t, x_prev)
+                lstm_state, y = lstm(p["OptimizedLSTMCell_0"], lstm_state, x)
+                next_x, u = _heads(p["_PredictionHeads_0"], y, x, n_hidden)
+                return (lstm_state, next_x), (next_x, u)
+
+        else:
+            p = params["params"]["_MLPCell_0"]
+
+            def cell(carry, x_t):
+                (x_prev,) = carry
+                x = jnp.where(teacher_forcing, x_t, x_prev)
+                y = jax.nn.relu(mlp(p, x, 1))
+                next_x, u = _heads(p["_PredictionHeads_0"], y, x, n_hidden)
+                return (next_x,), (next_x, u)
+
+        return jax.lax.scan(cell, carry, xseq)
 
     # -- plan-time / train-time services --------------------------------
 

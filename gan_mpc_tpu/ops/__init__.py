@@ -1,6 +1,1 @@
-# A fused-LSTM Pallas kernel was prototyped (round 2) and measured at
-# ~0.9x XLA's lax.scan at B=8192 — and no production config runs LSTM
-# compute anywhere near that batch (critic/expert LSTMs: B<=256, T~11),
-# so it was removed rather than kept as unwired inventory; the fused MLP
-# below IS in the planner's hot loop and wins.
-from gan_mpc_tpu.ops.fused_mlp import fused_mlp, mlp_params  # noqa: F401
+from gan_mpc_tpu.ops.fused_mlp import mlp_params  # noqa: F401

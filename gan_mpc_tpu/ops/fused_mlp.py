@@ -1,45 +1,23 @@
-"""Fused multi-layer MLP forward/backward as Pallas TPU kernels.
+"""Batch-major relu-MLP ops for the planner's hot loop.
 
-Why: the planner's hot loop evaluates small MLPs (dynamics 4->200->200->
-200->3, cost 3->128->128->10) thousands of times per control step over
-large env batches. XLA lowers each Dense layer to a separate dot +
-elementwise op, spilling every intermediate activation (B, hidden) to HBM
-— at large batch the planner becomes HBM-bandwidth-bound (measured:
-throughput saturates ~163k steps/s at B>=1024 on v5e). Fusing the whole
-stack into ONE kernel keeps all activations in VMEM: HBM traffic drops to
-inputs + outputs + (tiny) weights.
+The planner evaluates small MLPs (dynamics 23->200->200->200->17, cost
+17->128->128->10 at the cheetah flagship) over whole env batches: the
+line search alone applies them to 512 envs x 16 step sizes = 8192 rows
+per time step. ``mlp_apply`` is the forward and ``mlp_value_and_jac`` the
+forward plus the exact input Jacobian as flattened GEMM chains; both are
+plain ``jnp`` that XLA compiles (cuBLAS GEMMs with bias+relu fused into
+the epilogue on the GPU).
 
-Design:
-  * batched 2D input (B, fin); grid over row tiles of 256; every layer's
-    weights live in VMEM for the whole kernel (hidden <= 512 assumed —
-    far under the ~16MB VMEM budget for these model sizes);
-  * relu on all but the last layer (the model zoo's convention);
-  * backward pass is a second fused kernel computing dx and (dW, db) per
-    row-tile with accumulation over the grid — wired up via
-    ``jax.custom_vjp`` so ``jax.grad`` through the planner still works;
-  * off-TPU (CPU tests) the same math runs as plain jnp (fallback), so
-    numerics are testable everywhere and kernels verified against the
-    fallback on real TPU.
-
-SURVEY.md §7 step 8 / BASELINE.json north-star: "cost/, dynamics/, and
-critic/ MLP forward/backward passes fuse into Pallas kernels".
-
-Measured (v5e, dynamics stack 4->200->200->200->3, f32): single apply at
-B=131072: 1.29 ms fused vs 1.78 ms XLA (1.38x). The win grows with batch;
-below ~B=32k XLA's pipelining across chained applies is competitive, so
-the planner integration (batch-native planner calling this op on the
-whole env batch) is the follow-up that cashes this in.
+A fused single-kernel forward through Pallas/Triton was measured against
+this on an H100 at 8192 rows and lost (PERF.md, PR 1), so none is kept.
 """
 
 from __future__ import annotations
 
-import functools
 from typing import Sequence, Tuple
 
 import jax
 import jax.numpy as jnp
-
-_TILE = 1024
 
 
 def mlp_params(
@@ -55,10 +33,10 @@ def mlp_params(
 
 
 def _mm(a, w, dtype):
-    """GEMM at the requested MXU dtype with f32 accumulation.
+    """GEMM at the requested compute dtype with f32 accumulation.
 
     dtype=None keeps plain f32. dtype=bfloat16 casts BOTH operands so the
-    MXU runs at its native bf16 rate; ``preferred_element_type`` keeps the
+    GEMM runs at the bf16 rate; ``preferred_element_type`` keeps the
     accumulator (and output) f32, so downstream elementwise math and the
     Riccati recursion never see bf16 rounding beyond the product terms.
     """
@@ -70,7 +48,9 @@ def _mm(a, w, dtype):
     )
 
 
-def _reference_forward(x, params, dtype=None):
+def mlp_apply(x: jax.Array, params, dtype=None) -> jax.Array:
+    """relu-MLP forward on (N, fin) rows; ``dtype`` selects the GEMM
+    compute dtype (see ``_mm``)."""
     h = x
     for i, (w, b) in enumerate(params):
         h = _mm(h, w, dtype) + b
@@ -79,236 +59,16 @@ def _reference_forward(x, params, dtype=None):
     return h
 
 
-def _on_tpu() -> bool:
-    return jax.default_backend() == "tpu"
-
-
-# ---------------------------------------------------------------------------
-# Pallas kernels
-# ---------------------------------------------------------------------------
-
-
-def _fwd_kernel(n_layers, x_ref, *refs):
-    """refs: W0, b0, W1, b1, ..., out_ref, then per-layer activation
-    scratch? — activations are small; recompute in bwd instead."""
-    *wb_refs, out_ref = refs
-    h = x_ref[:]
-    for i in range(n_layers):
-        w = wb_refs[2 * i][:]
-        b = wb_refs[2 * i + 1][:]
-        h = (
-            jnp.dot(h, w, preferred_element_type=jnp.float32)
-            + b[None, :]
-        )
-        if i < n_layers - 1:
-            h = jnp.maximum(h, 0.0)
-    out_ref[:] = h
-
-
-def _bwd_kernel(n_layers, x_ref, g_ref, *refs):
-    """Recompute activations in VMEM, then backprop within the tile.
-    Outputs: dx tile + per-layer (dW, db) partials accumulated over grid."""
-    from jax.experimental import pallas as pl
-
-    wb_refs = refs[: 2 * n_layers]
-    dx_ref = refs[2 * n_layers]
-    grad_refs = refs[2 * n_layers + 1 :]
-
-    # forward recompute, stashing pre-relu activations
-    h = x_ref[:]
-    acts = [h]
-    for i in range(n_layers):
-        w = wb_refs[2 * i][:]
-        b = wb_refs[2 * i + 1][:]
-        h = jnp.dot(h, w, preferred_element_type=jnp.float32) + b[None, :]
-        if i < n_layers - 1:
-            h = jnp.maximum(h, 0.0)
-        acts.append(h)
-
-    first_tile = pl.program_id(0) == 0
-    g = g_ref[:]
-    for i in reversed(range(n_layers)):
-        w = wb_refs[2 * i][:]
-        a_in = acts[i]
-        dw = jnp.dot(
-            a_in.T, g, preferred_element_type=jnp.float32
-        )
-        db = jnp.sum(g, axis=0)
-        dw_ref, db_ref = grad_refs[2 * i], grad_refs[2 * i + 1]
-
-        @pl.when(first_tile)
-        def _(dw_ref=dw_ref, db_ref=db_ref, dw=dw, db=db):
-            dw_ref[:] = dw
-            db_ref[:] = db
-
-        @pl.when(jnp.logical_not(first_tile))
-        def _(dw_ref=dw_ref, db_ref=db_ref, dw=dw, db=db):
-            dw_ref[:] = dw_ref[:] + dw
-            db_ref[:] = db_ref[:] + db
-
-        g = jnp.dot(g, w.T, preferred_element_type=jnp.float32)
-        if i > 0:
-            g = jnp.where(acts[i] > 0.0, g, 0.0)
-    dx_ref[:] = g
-
-
-def _pad_rows(a, batch_padded):
-    pad = batch_padded - a.shape[0]
-    if pad == 0:
-        return a
-    return jnp.concatenate(
-        [a, jnp.zeros((pad,) + a.shape[1:], a.dtype)], axis=0
-    )
-
-
-def _pallas_forward(x, params):
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    n_layers = len(params)
-    batch, fin = x.shape
-    fout = params[-1][0].shape[1]
-    batch_padded = max(_TILE, -(-batch // _TILE) * _TILE)
-    x = _pad_rows(x, batch_padded)
-    grid = (batch_padded // _TILE,)
-
-    wb_flat = []
-    for w, b in params:
-        wb_flat += [w, b]
-
-    in_specs = [
-        pl.BlockSpec(
-            (_TILE, fin), lambda i: (i, 0), memory_space=pltpu.VMEM
-        )
-    ] + [
-        pl.BlockSpec(a.shape, lambda i, nd=a.ndim: (0,) * nd, memory_space=pltpu.VMEM)
-        for a in wb_flat
-    ]
-    out = pl.pallas_call(
-        functools.partial(_fwd_kernel, n_layers),
-        grid=grid,
-        in_specs=in_specs,
-        out_specs=pl.BlockSpec(
-            (_TILE, fout), lambda i: (i, 0), memory_space=pltpu.VMEM
-        ),
-        out_shape=jax.ShapeDtypeStruct((batch_padded, fout), jnp.float32),
-    )(x, *wb_flat)
-    return out[:batch]
-
-
-def _pallas_backward(x, params, g):
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    n_layers = len(params)
-    batch, fin = x.shape
-    fout = g.shape[1]
-    batch_padded = max(_TILE, -(-batch // _TILE) * _TILE)
-    # zero-padded rows contribute nothing to dW/db and their dx is sliced
-    x = _pad_rows(x, batch_padded)
-    g = _pad_rows(g, batch_padded)
-    grid = (batch_padded // _TILE,)
-
-    wb_flat = []
-    for w, b in params:
-        wb_flat += [w, b]
-
-    in_specs = [
-        pl.BlockSpec((_TILE, fin), lambda i: (i, 0), memory_space=pltpu.VMEM),
-        pl.BlockSpec((_TILE, fout), lambda i: (i, 0), memory_space=pltpu.VMEM),
-    ] + [
-        pl.BlockSpec(a.shape, lambda i, nd=a.ndim: (0,) * nd, memory_space=pltpu.VMEM)
-        for a in wb_flat
-    ]
-    out_shape = [jax.ShapeDtypeStruct((batch_padded, fin), jnp.float32)] + [
-        jax.ShapeDtypeStruct(a.shape, jnp.float32) for a in wb_flat
-    ]
-    out_specs = [
-        pl.BlockSpec((_TILE, fin), lambda i: (i, 0), memory_space=pltpu.VMEM)
-    ] + [
-        pl.BlockSpec(a.shape, lambda i, nd=a.ndim: (0,) * nd, memory_space=pltpu.VMEM)
-        for a in wb_flat
-    ]
-    outs = pl.pallas_call(
-        functools.partial(_bwd_kernel, n_layers),
-        grid=grid,
-        in_specs=in_specs,
-        out_specs=out_specs,
-        out_shape=out_shape,
-    )(x, g, *wb_flat)
-    dx, *dwb = outs
-    grads = tuple(
-        (dwb[2 * i], dwb[2 * i + 1]) for i in range(n_layers)
-    )
-    return dx[:batch], grads
-
-
-# ---------------------------------------------------------------------------
-# public op
-# ---------------------------------------------------------------------------
-
-
-@jax.custom_vjp
-def fused_mlp(x: jax.Array, params) -> jax.Array:
-    """relu-MLP forward: x (B, fin) -> (B, fout); params = ((W, b), ...).
-
-    One fused Pallas kernel on TPU; identical jnp math elsewhere.
-    """
-    if _on_tpu():
-        return _pallas_forward(x, params)
-    return _reference_forward(x, params)
-
-
-def _fused_fwd(x, params):
-    return fused_mlp(x, params), (x, params)
-
-
-def _fused_bwd(res, g):
-    x, params = res
-    if _on_tpu():
-        dx, grads = _pallas_backward(x, params, g)
-        return dx, grads
-
-    # fallback: plain autodiff of the reference math
-    _, vjp = jax.vjp(_reference_forward, x, params)
-    return vjp(g)
-
-
-fused_mlp.defvjp(_fused_fwd, _fused_bwd)
-
-
 # ---------------------------------------------------------------------------
 # fused value + Jacobian (batch-native planner linearization)
 # ---------------------------------------------------------------------------
 
-def dense_stack(flax_params) -> Tuple[Tuple[jax.Array, jax.Array], ...]:
-    """((W, b), ...) from a flax param tree of auto-named Dense layers."""
-    layers = flax_params["params"]
+def dense_stack(params) -> Tuple[Tuple[jax.Array, jax.Array], ...]:
+    """((W, b), ...) from a param tree of ``Dense_<i>`` layers
+    (``models/layers.py``)."""
+    layers = params["params"]
     names = sorted(layers, key=lambda s: int(s.rsplit("_", 1)[1]))
     return tuple((layers[k]["kernel"], layers[k]["bias"]) for k in names)
-
-
-# Minimum rows before the Pallas forward beats XLA's pipelined Denses
-# (measured on v5e: crossover ~32k, competitive from ~8k; see module
-# docstring). Below this plain jnp is used. The crossover was measured
-# on STANDALONE applies; inside a lax.scan step the fused kernel also
-# collapses ~11 HLO ops into one launch, which matters in the
-# latency-bound long-horizon solver — hence the env override
-# (GMT_FUSED_MIN_ROWS) for bench exploration.
-import os as _os
-
-FUSED_MIN_ROWS = int(_os.environ.get("GMT_FUSED_MIN_ROWS", "8192"))
-
-
-def mlp_apply(x: jax.Array, params, dtype=None) -> jax.Array:
-    """relu-MLP forward on (N, fin) rows; routes to the fused Pallas
-    kernel when the batch is large enough for it to win. ``dtype``
-    selects the GEMM compute dtype (see ``_mm``); the bf16 path uses the
-    plain-XLA form (the dots run at MXU bf16 rate and XLA fuses the
-    elementwise tail)."""
-    if dtype is None and _on_tpu() and x.shape[0] >= FUSED_MIN_ROWS:
-        return fused_mlp(x, params)
-    return _reference_forward(x, params, dtype)
 
 
 def mlp_value_and_jac(x: jax.Array, params, dtype=None):
@@ -319,7 +79,7 @@ def mlp_value_and_jac(x: jax.Array, params, dtype=None):
     The planner's linearization previously pushed fin tangent vectors per
     instance through ``jax.jacfwd`` (per-instance batched matmuls). Here
     the Jacobian chain is computed as flattened GEMMs with the shared
-    weight — MXU-shaped (M huge, K/N = layer widths) — with the relu
+    weight — large-M GEMMs (M huge, K/N = layer widths) — with the relu
     masks from the forward pass applied between layers. Exact for relu
     networks (piecewise-linear, so the product of masked weight matrices
     IS the Jacobian a.e.).
@@ -331,7 +91,7 @@ def mlp_value_and_jac(x: jax.Array, params, dtype=None):
     saves a factor fin/fout on every GEMM).
 
     ``dtype`` selects the GEMM compute dtype (``_mm``): bfloat16 runs the
-    whole chain at MXU bf16 rate with f32 accumulation; masks and the
+    whole chain at the bf16 rate with f32 accumulation; masks and the
     forward bias/relu tail stay f32.
     """
     n_layers = len(params)

@@ -1,10 +1,12 @@
 """Device mesh + sharding helpers.
 
 The reference is single-process single-device (SURVEY.md §2 parallelism
-table: no pmap/pjit/shard_map/psum anywhere). Scale-out here is the
-standard TPU recipe: a 1-D ``jax.sharding.Mesh`` over the data-parallel
-("dp") axis — thousands of env+planner instances sharded across chips,
-params replicated, gradient reduction via ``psum`` riding the ICI.
+table: no pmap/pjit/shard_map/psum anywhere). Scale-out here is a
+1-D ``jax.sharding.Mesh`` over the data-parallel ("dp") axis — thousands
+of env+planner instances sharded across devices, params replicated,
+gradient reduction via ``psum`` (NCCL collectives on GPUs; the cards of
+one host are joined all to all by NVLink, so the mesh follows the
+algorithm alone).
 """
 
 from __future__ import annotations
@@ -35,11 +37,11 @@ def make_hybrid_mesh(
     axis_names: Sequence[str] = ("dcn", "ici"),
     dcn_size: Optional[int] = None,
 ) -> Mesh:
-    """2-D multi-host mesh: slow axis ("dcn") crosses hosts/slices, fast
-    axis ("ici") stays within one host's chips, so that gradient
-    reductions hierarchy-reduce — intra-slice traffic rides the ICI and
-    only the slice-level partial crosses the data-center network (SURVEY
-    §5 comm row: "ICI within a slice and DCN across slices").
+    """2-D multi-host mesh: slow axis ("dcn") crosses hosts, fast axis
+    ("ici") stays within one host's devices, so that gradient reductions
+    reduce hierarchically — intra-host traffic stays on the host's own
+    links and only the host-level partial crosses the network between
+    hosts.
 
     Under ``jax.distributed`` the dcn axis defaults to ``process_count()``
     and devices are grouped so each mesh row is one process's local chips.

@@ -2,7 +2,7 @@
 
 Each device runs its shard of env+planner instances; parameters are
 replicated; gradients and losses are ``pmean``-reduced over the mesh's
-data-parallel axis (compiled to ICI collectives on TPU). These are the
+data-parallel axis (compiled to collectives between the devices). These are the
 multi-chip equivalents of the single-device trainer inner loops in
 ``gan_mpc_tpu.training`` (and of the reference's vmapped single-device
 batch steps, ``/root/reference/policy/base.py:122-128``).

@@ -12,7 +12,8 @@ per-lane convergence / line-search / Levenberg-Marquardt state is carried
 as (B,) arrays with masked updates. Matches ``vmap(ilqr)`` numerically
 (``tests/test_batch_ilqr.py``).
 
-Performance notes (v5e measurements drove these choices):
+Performance notes (design choices made on the solver's first
+accelerator; none re-measured on the GPU yet):
 
   * all horizon-indexed arrays are TIME-MAJOR internally — X (T+1, B, n),
     U (T, B, m), A (T, B, n, n) — so every ``lax.scan`` consumes its
@@ -63,50 +64,24 @@ class BatchProblem:
     stage_cost: Callable
     terminal_cost: Callable
     quad: Callable
-    # Optional fused step for the forward scans (ops/fused_ls.py): ONE
-    # kernel computing control law + dynamics + stage cost,
-    #   ls_step(x (B,A,n), Xref (B,n), Uref (B,m), alphaBA (B,A),
-    #           k (B,m), K (B,m,n), t) -> (nx (B,A,n), u (B,A,m),
-    #                                      cost (B,A)).
-    # When set, batch_rollout / _line_search_objs / _forward_best route
-    # through it (the long-horizon scans are per-kernel-latency bound).
-    ls_step: Callable = None
 
     def __hash__(self):
         return hash(
             (self.dynamics_step, self.dynamics_jac, self.stage_cost,
-             self.terminal_cost, self.quad, self.ls_step)
+             self.terminal_cost, self.quad)
         )
 
 
 def batch_rollout(problem: BatchProblem, U, x0, unroll=1):
     """U (T,B,m), x0 (B,n) -> X (T+1,B,n), obj (B,)."""
     T = U.shape[0]
-    B = x0.shape[0]
-    m = U.shape[-1]
 
-    if problem.ls_step is not None:
-        # fused path: alpha=0, k=0, K=0, Xref=x -> u = Uref exactly
-        zk = jnp.zeros((B, m), x0.dtype)
-        zK = jnp.zeros((B, m, x0.shape[-1]), x0.dtype)
-        za = jnp.zeros((B, 1), x0.dtype)
-
-        def step(carry, inp):
-            x, acc = carry
-            u, t = inp
-            nx, _, cost = problem.ls_step(
-                x[:, None], x, u, za, zk, zK, t
-            )
-            return (nx[:, 0], acc + cost[:, 0]), nx[:, 0]
-
-    else:
-
-        def step(carry, inp):
-            x, acc = carry
-            u, t = inp
-            acc = acc + problem.stage_cost(x[:, None], u[:, None], t)[:, 0]
-            nx = problem.dynamics_step(x[:, None], u[:, None], t)[:, 0]
-            return (nx, acc), nx
+    def step(carry, inp):
+        x, acc = carry
+        u, t = inp
+        acc = acc + problem.stage_cost(x[:, None], u[:, None], t)[:, 0]
+        nx = problem.dynamics_step(x[:, None], u[:, None], t)[:, 0]
+        return (nx, acc), nx
 
     (xT, acc), tail = jax.lax.scan(
         step,
@@ -146,7 +121,7 @@ def _backward(A, Bm, cx, cu, cxx, cuu, cux, reg, settings):
 
     — algebraically identical to the classical per-block recursion but
     ~half the per-step kernel count, with every GEMM at the fatter
-    (n+m)-wide shape (better MXU tiling for the small state dims MPC
+    (n+m)-wide shape (better matrix-unit tiling for the small state dims MPC
     uses). Cblock and the stacked cost vector are assembled ONCE for the
     whole horizon outside the scan (vectorized over T).
     """
@@ -300,21 +275,14 @@ def _line_search_objs(problem, X, U, k, K, alphas, unroll=1,
     B = X.shape[1]
     A_ = alphas.shape[0]
     x0 = jnp.broadcast_to(X[0][:, None], (B, A_, X.shape[-1]))
-    alphaBA = jnp.broadcast_to(alphas[None], (B, A_))
 
     def step(carry, inp):
         x, acc = carry
         Xref, Uref, kt, Kt, t = inp
-        if problem.ls_step is not None:
-            nx, u, cost = problem.ls_step(
-                x, Xref, Uref, alphaBA, kt, Kt, t
-            )
-            acc = acc + cost
-        else:
-            du = jnp.einsum("bmn,ban->bam", Kt, x - Xref[:, None])
-            u = Uref[:, None] + alphas[None, :, None] * kt[:, None] + du
-            acc = acc + problem.stage_cost(x, u, t)
-            nx = problem.dynamics_step(x, u, t)
+        du = jnp.einsum("bmn,ban->bam", Kt, x - Xref[:, None])
+        u = Uref[:, None] + alphas[None, :, None] * kt[:, None] + du
+        acc = acc + problem.stage_cost(x, u, t)
+        nx = problem.dynamics_step(x, u, t)
         out = (nx, u) if materialize else None
         return (nx, acc), out
 
@@ -332,17 +300,10 @@ def _forward_best(problem, X, U, k, K, alpha_b, unroll=1):
     """Closed-loop rollout at each lane's OWN step size alpha_b (B,).
     Returns Xn (T+1,B,n), Un (T,B,m), obj (B,)."""
     B = X.shape[1]
-    alphaB1 = alpha_b[:, None]  # (B, 1): fused path's candidate axis
 
     def step(carry, inp):
         x, acc = carry
         Xref, Uref, kt, Kt, t = inp
-        if problem.ls_step is not None:
-            nx3, u3, cost = problem.ls_step(
-                x[:, None], Xref, Uref, alphaB1, kt, Kt, t
-            )
-            nx, u, c = nx3[:, 0], u3[:, 0], cost[:, 0]
-            return (nx, acc + c), (nx, u)
         u = (
             Uref
             + alpha_b[:, None] * kt

@@ -1,14 +1,14 @@
-"""TPU-first iLQR trajectory optimizer.
+"""Single-instance iLQR trajectory optimizer.
 
 Replaces the reference's external ``trajax.optimizers.ilqr`` dependency
 (used at ``/root/reference/policy/optimizers.py:10-21`` with the solver
 knobs of ``/root/reference/policy/eval.py:10-20``) with an in-repo,
-fully-jitted implementation designed for TPU execution:
+fully-jitted implementation:
 
   * the nonlinear rollout is a ``lax.scan``;
   * dynamics linearization and cost quadratization are ``vmap`` +
-    ``jacfwd``/``hessian`` over the whole horizon at once (time-batched,
-    MXU-friendly), not a Python loop;
+    ``jacfwd``/``hessian`` over the whole horizon at once (time-batched
+    matrix work), not a Python loop;
   * the backward Riccati recursion is a ``lax.scan`` with
     Levenberg-Marquardt regularization of ``Quu``;
   * the line search evaluates a FIXED, static grid of step sizes in
@@ -21,7 +21,7 @@ Conventions:
                         terminal step (``u`` is a zero row there);
   ``dynamics(x, u, t)`` next state, for ``t`` in 0..T-1.
 
-All math is float32 (TPU native).
+All math is float32.
 """
 
 from __future__ import annotations
@@ -32,9 +32,9 @@ from typing import Callable
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from gan_mpc_tpu.planner.linalg import solve_spd
+from gan_mpc_tpu.utils import struct
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,19 +73,12 @@ class SolverSettings:
     # scan per iteration — right for long horizons), "auto" picks
     # materialize when T >= 16 and the candidate block is < 32 MB.
     ls_materialize: str = "auto"
-    # MXU compute dtype for the batch solver's dynamics-net evaluations
+    # GEMM compute dtype for the batch solver's dynamics-net evaluations
     # (line-search rollouts + Jacobian-chain GEMMs): "float32" or
-    # "bfloat16". bfloat16 runs the matmuls at full MXU rate with f32
+    # "bfloat16". bfloat16 runs the matmuls at the bf16 rate with f32
     # accumulation (preferred_element_type); the Riccati recursion, cost
-    # quadratization, and all solver state stay f32. Long-horizon
-    # measurements: see BENCHMARKS.md round-5 H=50 rows.
+    # quadratization, and all solver state stay f32.
     compute_dtype: str = "float32"
-    # Fused forward-scan step (ops/fused_ls.py): ONE Pallas program per
-    # timestep for control law + dynamics MLP + stage cost in the batch
-    # solver's rollout/line-search/recompute scans. "auto" enables it on
-    # TPU (where the long-horizon scans are per-kernel-latency bound),
-    # "on"/"off" force it. Applies only to the batch-native path.
-    fused_ls: str = "off"
 
 
 class ILQRSolution(struct.PyTreeNode):
@@ -224,8 +217,8 @@ def _backward_pass(A, B, cx, cu, cxx, cuu, cux, reg, settings):
         Quu_reg = Quu_safe + reg * jnp.eye(Quu.shape[0], dtype=Quu.dtype)
         # One solve serves both the open-loop and feedback gains. Unrolled
         # Gauss-Jordan for these tiny SPD systems: no LU/cholesky custom
-        # call (which dominated TPU wall-clock and fails to register inside
-        # large fused XLA:CPU modules) — see planner/linalg.py.
+        # call (which fails to register inside large fused XLA:CPU
+        # modules) — see planner/linalg.py.
         kK = solve_spd(
             Quu_reg, jnp.concatenate([Qu[:, None], Qux], axis=1)
         )

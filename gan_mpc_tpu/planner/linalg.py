@@ -3,11 +3,11 @@
 The Riccati recursion solves a tiny SPD system (action dimension m <= ~8
 for every task in the zoo) at every timestep of every planner instance.
 ``jnp.linalg.solve`` lowers to a blocked LU with row pivoting — a custom
-call that (a) dominates the planner's wall-clock on TPU at these sizes
-(measured: the backward pass was ~75% of a bench control step, almost all
-of it the batched 6x6 solves) and (b) is the LAPACK FFI call that fails to
-register inside large fused XLA:CPU modules (the reason the fused
-single-program epoch was skipped on the CPU harness in round 1).
+call that (a) dominated the planner's wall-clock on the accelerator the
+solver was first built for (not yet measured on the GPU) and (b) is the
+LAPACK FFI call that fails to register inside large fused XLA:CPU
+modules (the reason the fused single-program epoch was skipped on the
+CPU harness in round 1).
 
 ``solve_spd`` replaces it with an UNROLLED Gauss-Jordan elimination for
 static m <= SMALL_MAX: m rank-1 updates on the augmented system, pure

@@ -1,7 +1,7 @@
 """Parallel-in-time Riccati backward pass via associative scan.
 
 For long horizons (H >= 50, BASELINE.json configs[4]) the sequential
-Riccati recursion is latency-bound on TPU: T tiny dependent steps. This
+Riccati recursion is latency-bound: T tiny dependent steps. This
 module computes the same time-varying LQR value functions in O(log T)
 depth with ``jax.lax.associative_scan``, following the temporal-
 parallelization construction of Särkkä & García-Fernández (2021): each

@@ -247,7 +247,7 @@ class MPCPolicy:
         theta_d = params["dynamics_params"]
         cost_model, dyn_model = self.cost_model, self.dynamics_model
 
-        # bf16 MXU path for the dynamics-net GEMMs (line-search rollouts
+        # bf16 path for the dynamics-net GEMMs (line-search rollouts
         # + Jacobian chain) when the solver asks for it; everything the
         # Riccati recursion consumes stays f32 (accumulation is f32).
         cdt = (
@@ -276,42 +276,6 @@ class MPCPolicy:
 
         goal_u_tm = jnp.swapaxes(U_goal, 0, 1)  # (T, B, u) time-major
 
-        # Fused forward-scan step (one Pallas program per timestep for
-        # control law + dynamics MLP + stage cost) when the solver asks
-        # for it — the long-horizon scans are per-kernel-latency bound.
-        fused = self.settings.fused_ls
-        ls_step = None
-        if fused == "on" or (
-            fused == "auto" and jax.default_backend() == "tpu"
-        ):
-            from gan_mpc_tpu.ops.fused_ls import fused_ls_step
-            from gan_mpc_tpu.ops.fused_mlp import dense_stack
-
-            layers = dense_stack(theta_d)
-            w = jax.nn.sigmoid(theta_w)
-            has_ag = theta_w.shape[-1] > 3
-            w_ag = w[3] if has_ag else jnp.zeros(())
-            gain = (
-                theta_w[4]
-                if theta_w.shape[-1] > 4
-                else jnp.ones((), jnp.float32)
-            )
-            wvec = jnp.stack([w[0], w[1], w_ag, gain]).reshape(1, 4)
-            gs = goal_tm.shape[-1]
-            ag_scale = (
-                cost_model.action_goal_scale if has_ag else 0.0
-            )
-
-            def ls_step(x, Xref, Uref, alphaBA, kt, Kt, t):
-                return fused_ls_step(
-                    x, Xref, Uref, alphaBA, kt, Kt,
-                    goal_tm[t], goal_u_tm[t], wvec, layers,
-                    gs=gs,
-                    action_goal_squared=cost_model.action_goal_squared,
-                    ag_scale=ag_scale,
-                    bf16=cdt is not None,
-                )
-
         problem = BatchProblem(
             dynamics_step=dynamics_step,
             dynamics_jac=dynamics_jac,
@@ -324,7 +288,6 @@ class MPCPolicy:
             quad=lambda X, U: cost_model.quad_batch(
                 X, U, theta_c, theta_w, goal_tm, goal_u_tm
             ),
-            ls_step=ls_step,
         )
         return batch_ilqr(
             problem, history_X[:, -1], init_U, self.settings

@@ -39,7 +39,7 @@ def expert_eval_policy(model):
 def run(config: Config, log_fn=print):
     from gan_mpc_tpu import runtime_setup
 
-    runtime_setup.setup(config.get_path("runtime.compile_cache_dir"))
+    runtime_setup.setup()
     key = jax.random.PRNGKey(config.seed)
     env = common.make_env(config.env.name)
     trajs = common.ensure_trajectories(config)

@@ -293,7 +293,7 @@ def _dagger_rounds(
 def run(config: Config, log_fn=print):
     from gan_mpc_tpu import runtime_setup
 
-    runtime_setup.setup(config.get_path("runtime.compile_cache_dir"))
+    runtime_setup.setup()
     ctx = l2_runner.setup(config, with_critic=True)
     policy, params = ctx["policy"], ctx["params"]
     tcfg = config.mpc.train
@@ -400,7 +400,6 @@ def run(config: Config, log_fn=print):
             warm_start_updates=dcfg.get_path("warm_start_updates", 3),
             expert_updates=dcfg.get_path("expert_updates", 0),
         )
-        common.maybe_clear_caches()
         params, critic_opt_state, critic_losses, critic_tests = train_critic(
             policy,
             critic_opt,
@@ -413,7 +412,6 @@ def run(config: Config, log_fn=print):
             key=k_critic,
             plan_batch=qcfg.get_path("plan_batch", 256),
         )
-        common.maybe_clear_caches()
         params, cost_opt_state, gen_losses, gen_tests = train_cost(
             policy,
             cost_opt,
@@ -431,7 +429,6 @@ def run(config: Config, log_fn=print):
             eval_windows=ccfg.get_path("eval_windows", None),
             max_steps_per_update=ccfg.get_path("steps_per_update", None),
         )
-        common.maybe_clear_caches()
         stack.close()
         history["dynamics_train_losses"] += dyn_losses
         history["critic_train_losses"] += critic_losses

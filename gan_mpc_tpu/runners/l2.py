@@ -65,7 +65,7 @@ def setup(config: Config, with_critic: bool = False):
     # the saved prefix is spliced in and the new tail keeps its init.
     init_run = config.get_path("mpc.train.init_from_run")
     if init_run:
-        from flax import serialization
+        from gan_mpc_tpu.utils import serialization
 
         with open(os.path.join(init_run, "params.msgpack"), "rb") as fp:
             raw = serialization.msgpack_restore(fp.read())
@@ -335,10 +335,9 @@ def episode_returns(config: Config, ctx, key, num_runs=None):
     num_runs = ecfg.num_runs_for_avg if num_runs is None else num_runs
     if num_runs <= 0:
         return None
-    # runtime.eval_chunk_steps bounds each eval program (TPU watchdog:
-    # a 1000-step x H=50 plan-per-step program in ONE launch is exactly
-    # the "executes too long" kill documented in BENCHMARKS.md; chunked
-    # rollouts are bit-identical and invariant to the chunk size)
+    # runtime.eval_chunk_steps bounds each eval program (a 1000-step x
+    # H=50 plan-per-step program is otherwise ONE long launch); chunked
+    # rollouts are bit-identical and invariant to the chunk size
     chunk = config.get_path("runtime.eval_chunk_steps", 0)
     if chunk:
         from gan_mpc_tpu.envs.rollout import chunked_batched_rollout
@@ -531,7 +530,7 @@ def _run_fused_epochs(
 def run(config: Config, log_fn=print):
     from gan_mpc_tpu import runtime_setup
 
-    runtime_setup.setup(config.get_path("runtime.compile_cache_dir"))
+    runtime_setup.setup()
     ctx = setup(config, with_critic=False)
     policy, params = ctx["policy"], ctx["params"]
     tcfg = config.mpc.train

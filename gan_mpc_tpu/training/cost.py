@@ -58,8 +58,8 @@ def evaluate_cost_loss(
     ``eval_windows`` (default ``_MAX_EVAL_WINDOWS``) — each one is a full
     planner solve; the reference's evaluate-the-whole-test-set-each-update
     habit (norm/cost_trainer.py:44-48) dominates wall-clock at realistic
-    dataset sizes, and very large plan batches at long horizons exhaust
-    TPU scoped memory (worker kernel fault on the humanoid-scale config)."""
+    dataset sizes, and very large plan batches at long horizons need
+    device memory in proportion."""
     cap = _MAX_EVAL_WINDOWS if eval_windows is None else eval_windows
     X = dataset[0][:cap]
     Y = dataset[1][:cap] if has_targets else None
@@ -98,9 +98,8 @@ def train_cost(
     datasize = train_data[0].shape[0]
     steps = max(datasize // batch_size, 1)
     if max_steps_per_update is not None:
-        # one scanned program of `steps` bilevel solves; very long
-        # executions at humanoid scale trip the TPU runtime's watchdog
-        # (worker "kernel fault"), so configs can bound it.
+        # one scanned program of `steps` bilevel solves; configs can
+        # bound how long that program runs.
         steps = min(steps, max_steps_per_update)
     train_losses, test_losses = [], []
     for _ in range(num_updates):

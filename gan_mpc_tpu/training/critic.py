@@ -23,8 +23,8 @@ from gan_mpc_tpu.policies.losses import critic_bce_loss
 def build_critic_dataset(policy, params, X, Y, key):
     """(histories X, expert futures Y) -> shuffled (xseq, label) pairs.
 
-    The planner runs under vmap over every history — on TPU this is the
-    batched-planning fan-out (``/root/reference/gan/critic_trainer.py:12-38``).
+    The planner runs under vmap over every history — the batched-planning
+    fan-out (``/root/reference/gan/critic_trainer.py:12-38``).
     """
 
     def predict(history_x):
@@ -91,9 +91,8 @@ def train_critic(
 
     ``plan_batch`` caps the batched-planning fan-out on both the train
     and held-out dataset builds — each window is a full iLQR solve, and
-    very large plan batches at long horizons can exhaust TPU scoped
-    memory (observed as a worker kernel fault on the humanoid-scale
-    config); a fresh random subset is drawn per call."""
+    very large plan batches at long horizons need device memory in
+    proportion; a fresh random subset is drawn per call."""
     key, k_train, k_test, k_sub = jax.random.split(key, 4)
     Xtr, Ytr = true_train_data[0], true_train_data[1]
     if Xtr.shape[0] > plan_batch:

@@ -17,9 +17,10 @@ goes the rest of the way — one ``jax.jit`` whose body is:
 Expert windows are closed over as device constants. The only host work
 per epoch is reading back the scalar losses.
 
-Chunked mode (``chunk_updates``): the TPU runtime kills workers whose
-single XLA program executes too long ("kernel fault" watchdog — hit at
-humanoid scale, H=50 fan-outs). Passing ``chunk_updates=N`` splits the
+Chunked mode (``chunk_updates``) bounds how long one XLA program runs (a
+runtime that killed long-running programs at humanoid scale, H=50
+fan-outs, was the reason; none is known on the GPU). Passing
+``chunk_updates=N`` splits the
 epoch at phase boundaries AND slices every scanned-update phase into
 segments of at most N updates, each its own jitted program, with the
 epoch state threaded through on device (no host transfers beyond the
@@ -111,13 +112,12 @@ def make_fused_gan_epoch(
     ``mesh``: run the SAME single-program epoch data-parallel over the
     mesh's ``dp_axis`` (shard_map): collection envs, planning fan-outs,
     and every minibatch shard across devices; params / optimizer state /
-    replay stay replicated and gradients ``pmean`` over the axis (ICI
-    collectives on TPU). Episode keys are split globally and row-sliced
+    replay stay replicated and gradients ``pmean`` over the axis. Episode keys are split globally and row-sliced
     per device, and each per-update loss is the pmean of equal-size
     shard means — so the sharded epoch computes the single-device epoch
     to fp reduction order (tests/test_parallel.py). Mesh mode composes
     with the single-program epoch only (``chunk_updates`` must be 0; the
-    watchdog chunking exists for one overloaded chip, the mesh for many).
+    chunking exists for one overloaded device, the mesh for many).
 
     When the test split is given, each epoch also emits held-out critic /
     generator losses (planning once on ``test_plan_batch`` test windows),
@@ -127,7 +127,7 @@ def make_fused_gan_epoch(
     pure on-policy data collapses the model onto wherever the policy
     visits.
 
-    ``chunk_updates > 0`` selects the watchdog-safe CHUNKED epoch (see
+    ``chunk_updates > 0`` selects the CHUNKED epoch (see
     module docstring): identical numerics, but every scanned-update phase
     is partitioned into programs of at most that many updates, and
     batched planning fan-outs into sub-batches of ``plan_chunk`` (0 =
@@ -482,9 +482,9 @@ def make_fused_gan_epoch(
     def _chunked_collect(params, replay, k_collect):
         if collect_chunk_steps <= 0:
             return seg_collect(params, replay, k_collect)
-        # long-episode collection at watchdog scale: whole-episode
-        # seg_collect is ONE program (episode_steps plan-steps — the
-        # documented kill at H=50); chunked_batched_rollout bounds each
+        # long-episode collection in bounded programs: whole-episode
+        # seg_collect is ONE program (episode_steps plan-steps);
+        # chunked_batched_rollout bounds each
         # program to collect_chunk_steps with per-step semantics intact
         from gan_mpc_tpu.envs.rollout import chunked_batched_rollout
 
@@ -696,7 +696,7 @@ def make_fused_l2_epoch(
     -> bilevel L2 cost updates (+ Polyak), the L2 counterpart of
     ``make_fused_gan_epoch`` (``/root/reference/norm/runner.py:101-145``
     as one XLA program). ``chunk_updates``/``plan_chunk`` select the
-    watchdog-safe chunked mode (see module docstring); ``mesh`` the
+    chunked mode (see module docstring); ``mesh`` the
     data-parallel shard_map mode (same contract as the GAN epoch)."""
     from gan_mpc_tpu.policies.losses import l2_imitation_loss
 

@@ -1,7 +1,7 @@
 """Debug / CI-mode numerical guards.
 
 The reference has no sanitizers (SURVEY.md §5 "race detection" row —
-single-process, nothing to race). The TPU-native equivalents owed are
+single-process, nothing to race). The equivalents owed here are
 numerical: NaN propagation guards and shape/finite assertions usable
 inside jitted code.
 """

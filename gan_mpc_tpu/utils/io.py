@@ -3,8 +3,8 @@
 Capability parity with ``/root/reference/utils.py:121-156`` (save_all_args /
 load_params): each run gets the next integer directory under a model family
 path; params + config.json + loss-curve JSONs are written there and can be
-reloaded to reconstruct the model. Params are serialized with flax's
-msgpack (portable, no pickle).
+reloaded to reconstruct the model. Params are serialized in flax's
+msgpack format (portable, no pickle; ``utils/serialization.py``).
 """
 
 from __future__ import annotations
@@ -13,7 +13,7 @@ import json
 import os
 from typing import Optional
 
-from flax import serialization
+from gan_mpc_tpu.utils import serialization
 
 
 def new_run_dir(base_dir: str) -> str:

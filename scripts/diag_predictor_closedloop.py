@@ -47,7 +47,7 @@ def main():
     env = make_env(config.env.name)
     trajs = common.ensure_trajectories(config)
     normalizer = common.build_normalizer(config, trajs)
-    from flax import serialization
+    from gan_mpc_tpu.utils import serialization
 
     with open(run_dir + "/params.msgpack", "rb") as fp:
         raw = serialization.msgpack_restore(fp.read())

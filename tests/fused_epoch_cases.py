@@ -122,8 +122,8 @@ def test_fused_gan_epoch_runs_and_learns(gan_setup):
 
 
 def test_fused_gan_epoch_chunked_matches_single_program(gan_setup):
-    """chunk_updates partitions the epoch into bounded programs (TPU
-    watchdog safety) with IDENTICAL numerics: same update sequence, same
+    """chunk_updates partitions the epoch into bounded programs with
+    IDENTICAL numerics: same update sequence, same
     RNG streams, merely split at program boundaries. Compared against
     the shared fixture's single-program first epoch."""
     chunked = make_fused_gan_epoch(
@@ -145,8 +145,8 @@ def test_fused_gan_epoch_chunked_matches_single_program(gan_setup):
 
 
 def test_fused_gan_epoch_chunked_collection_runs(gan_setup):
-    """collect_chunk_steps bounds the collection program for watchdog
-    scale (humanoid H=50 long episodes). Different PRNG layout than the
+    """collect_chunk_steps bounds the collection program at humanoid
+    scale (H=50 long episodes). Different PRNG layout than the
     in-program collection (chunked_batched_rollout), so this asserts
     health, not equality."""
     chunked = make_fused_gan_epoch(

@@ -44,6 +44,26 @@ def test_checkpoint_keeps_latest(tmp_path):
     ckpt.close()
 
 
+def test_checkpoint_is_atomic_and_checks_the_tree(tmp_path):
+    """A torn write (leftover temp file) is never a checkpoint, and a
+    restore into another tree or shape fails loudly."""
+    import pytest
+
+    ckpt = TrainCheckpointer(str(tmp_path / "ck"), keep=3, every=1)
+    ckpt.maybe_save(1, {"x": jnp.ones(2), "n": jnp.int32(1)})
+    (tmp_path / "ck" / "2.npz.tmp").write_bytes(b"partial")
+    assert ckpt.all_steps() == [1]
+    assert ckpt.latest_step() == 1
+    with pytest.raises(ValueError, match="another state tree"):
+        ckpt.restore({"y": jnp.ones(2), "n": jnp.int32(0)})
+    with pytest.raises(ValueError, match="expected"):
+        ckpt.restore({"x": jnp.ones(3), "n": jnp.int32(0)})
+    ckpt.clear()
+    assert ckpt.latest_step() is None
+    with pytest.raises(FileNotFoundError):
+        ckpt.restore({"x": jnp.ones(2), "n": jnp.int32(0)})
+
+
 def test_metrics_recorder(tmp_path):
     path = str(tmp_path / "m.jsonl")
     m = MetricsRecorder(path)

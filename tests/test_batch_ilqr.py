@@ -2,9 +2,9 @@
 per-instance solver.
 
 Covers: LQR-oracle exactness of the batch solver, the analytic/fused
-quadratization and linearization against AD, batch_apply against the flax
-net, and whole-solve agreement between ``plan_batch`` and vmapped
-``plan`` on the flagship MPC problem.
+quadratization and linearization against AD, batch_apply against the
+per-instance net, and whole-solve agreement between ``plan_batch`` and
+vmapped ``plan`` on the flagship MPC problem.
 """
 
 import dataclasses

@@ -1,99 +1,13 @@
-"""Fused-MLP op tests.
-
-On the CPU test harness the op runs its jnp fallback — these tests pin the
-op's contract (shapes, grads, vjp wiring). The Pallas kernels themselves
-are additionally exercised in TPU interpret mode so the kernel code paths
-(grid, padding, accumulation) are covered without hardware.
-"""
+"""Batch-major MLP op tests: the value-and-Jacobian chain against
+autodiff of the plain forward, in both chain directions and in bf16."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-from gan_mpc_tpu.ops.fused_mlp import (
-    _reference_forward,
-    fused_mlp,
-    mlp_params,
-)
+from gan_mpc_tpu.ops.fused_mlp import mlp_apply, mlp_params
 
 KEY = jax.random.PRNGKey(0)
-SIZES = [4, 32, 32, 3]
-
-
-def test_forward_matches_reference():
-    params = mlp_params(KEY, SIZES)
-    x = jax.random.normal(jax.random.PRNGKey(1), (17, 4))
-    np.testing.assert_allclose(
-        np.asarray(fused_mlp(x, params)),
-        np.asarray(_reference_forward(x, params)),
-        rtol=1e-6,
-    )
-
-
-def test_gradients_match_reference():
-    params = mlp_params(KEY, SIZES)
-    x = jax.random.normal(jax.random.PRNGKey(1), (9, 4))
-
-    def lf(x, p):
-        return jnp.sum(jnp.tanh(fused_mlp(x, p)))
-
-    def lr(x, p):
-        return jnp.sum(jnp.tanh(_reference_forward(x, p)))
-
-    g1 = jax.grad(lf, argnums=(0, 1))(x, params)
-    g2 = jax.grad(lr, argnums=(0, 1))(x, params)
-    for a, b in zip(
-        jax.tree_util.tree_leaves(g1), jax.tree_util.tree_leaves(g2)
-    ):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=1e-5)
-
-
-def test_pallas_kernels_in_interpret_mode():
-    """Run the actual kernel code (grid/padding/accumulation) interpreted."""
-    import functools
-
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    import importlib
-
-    # importlib lookup: the package re-exports the function under the
-    # module's name, shadowing attribute access to the submodule
-    fm_mod = importlib.import_module("gan_mpc_tpu.ops.fused_mlp")
-
-    params = mlp_params(KEY, SIZES)
-    x = jax.random.normal(jax.random.PRNGKey(1), (300, 4))  # forces padding
-    n_layers = len(params)
-    wb_flat = []
-    for w, b in params:
-        wb_flat += [w, b]
-    tile = 128
-    batch_padded = 384
-    xp = fm_mod._pad_rows(x, batch_padded)
-    out = pl.pallas_call(
-        functools.partial(fm_mod._fwd_kernel, n_layers),
-        grid=(batch_padded // tile,),
-        in_specs=[
-            pl.BlockSpec((tile, 4), lambda i: (i, 0), memory_space=pltpu.VMEM)
-        ]
-        + [
-            pl.BlockSpec(
-                a.shape, lambda i, nd=a.ndim: (0,) * nd,
-                memory_space=pltpu.VMEM,
-            )
-            for a in wb_flat
-        ],
-        out_specs=pl.BlockSpec(
-            (tile, 3), lambda i: (i, 0), memory_space=pltpu.VMEM
-        ),
-        out_shape=jax.ShapeDtypeStruct((batch_padded, 3), jnp.float32),
-        interpret=True,
-    )(xp, *wb_flat)
-    np.testing.assert_allclose(
-        np.asarray(out[:300]),
-        np.asarray(_reference_forward(x, params)),
-        atol=1e-5,
-    )
 
 
 def test_value_and_jac_both_chain_directions():
@@ -106,9 +20,9 @@ def test_value_and_jac_both_chain_directions():
         params = mlp_params(KEY, sizes)
         x = jax.random.normal(jax.random.PRNGKey(2), (11, sizes[0]))
         y, J = mlp_value_and_jac(x, params)
-        y_ref = _reference_forward(x, params)
+        y_ref = mlp_apply(x, params)
         J_ref = jax.vmap(
-            jax.jacfwd(lambda xi: _reference_forward(xi[None], params)[0])
+            jax.jacfwd(lambda xi: mlp_apply(xi[None], params)[0])
         )(x)
         np.testing.assert_allclose(np.asarray(y), np.asarray(y_ref), atol=1e-5)
         np.testing.assert_allclose(np.asarray(J), np.asarray(J_ref), atol=1e-5)
@@ -117,7 +31,7 @@ def test_value_and_jac_both_chain_directions():
 def test_value_and_jac_bf16_close_to_f32():
     """bfloat16 GEMMs with f32 accumulation: same structure, small
     relative error (the batch solver's compute_dtype="bfloat16" path)."""
-    from gan_mpc_tpu.ops.fused_mlp import mlp_apply, mlp_value_and_jac
+    from gan_mpc_tpu.ops.fused_mlp import mlp_value_and_jac
 
     sizes = [7, 32, 32, 5]
     params = mlp_params(KEY, sizes)
@@ -131,14 +45,3 @@ def test_value_and_jac_bf16_close_to_f32():
     assert ya.dtype == jnp.float32
     yscale = float(jnp.max(jnp.abs(y32))) + 1e-9
     assert float(jnp.max(jnp.abs(ya - y32))) / yscale < 0.03
-
-
-def test_vjp_structure_roundtrip():
-    params = mlp_params(KEY, SIZES)
-    x = jax.random.normal(KEY, (5, 4))
-    out, vjp = jax.vjp(fused_mlp, x, params)
-    dx, dp = vjp(jnp.ones_like(out))
-    assert dx.shape == x.shape
-    assert jax.tree_util.tree_structure(dp) == jax.tree_util.tree_structure(
-        params
-    )
